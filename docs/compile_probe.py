@@ -1,14 +1,12 @@
-"""Attribute the first-compile cost of the bench-scale frame (VERDICT r4 #3).
+"""Attribute the first-compile cost of the bench-scale frame.
 
-BENCH_r03 -> r04: compile_first_s 185.4 -> 366.0 with a wave-1 note claiming
-the gi_trace_unroll=6 default KILLED the dominant compile term — the shipped
-number says otherwise.  This probe splits the cost into its stages and knobs:
+This probe splits the cost into its stages and knobs:
 
-  * trace+lower (Python tracing, 1-CPU-bound) vs backend compile (XLA)
+  * trace+lower (Python tracing, host-bound) vs backend compile (XLA)
   * per-knob deltas, one process per knob set (the persistent compile cache
     is DISABLED here so every number is a true cold compile)
 
-Usage:   VPR_COMPILATION_CACHE=0 python docs/compile_probe.py [variant ...]
+Usage:   python docs/compile_probe.py [variant ...]
 Variants: default | unroll_full | unroll1 | no_trace | reference | il2 |
           scan1 | noscan
 """
@@ -17,7 +15,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("VPR_COMPILATION_CACHE", "0")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 VARIANTS = {
@@ -38,11 +35,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from vulkan_pbr_renderer_tpu.app.renderer import (
+    import vulkan_pbr_renderer  # noqa: F401  (sets the cache; undone below)
+
+    jax.config.update("jax_enable_compilation_cache", False)
+
+    from vulkan_pbr_renderer.app.renderer import (
         CameraState, Renderer, init_frame_state, make_camera, render_frame,
     )
-    from vulkan_pbr_renderer_tpu.assets import build_scene, suntemple
-    from vulkan_pbr_renderer_tpu.config import RenderConfig
+    from vulkan_pbr_renderer.assets import build_scene, suntemple
+    from vulkan_pbr_renderer.config import RenderConfig
 
     names = sys.argv[1:] or ["default"]
     frames = int(os.environ.get("PROBE_FRAMES", "8"))

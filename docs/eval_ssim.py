@@ -4,8 +4,8 @@ docs/tune_gi.py settles 4 host-call frames with a per-frame sun nudge — that
 re-voxelizes every frame and leaves the lightgrid only 4 sweeps converged.
 bench.py settles 16 in-device frames with the sun FIXED (per-rep camera
 nudge), so the sweep has rotated axes 16 times and the GI field is brighter
-and smoother — fast-vs-reference SSIM reads ~0.02-0.04 LOWER there (measured
-r3: tune_gi 0.9245 vs bench 0.8807 on the same config).  Since BENCH_r{N}'s
+and smoother — fast-vs-reference SSIM reads ~0.02-0.04 LOWER there (tune_gi
+0.9245 vs bench 0.8807 on the same config).  Since the bench's
 `gi_fast_ssim_vs_reference` is the number that counts, variants must be
 judged under its methodology.  This harness reproduces bench.py's SSIM block
 (two 8-frame scans per camera point, 1e-6 camera-nudged second batch, SSIM of
@@ -22,10 +22,14 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# reference caches and diff images stay inside the checkout (gitignored)
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "chiprun_out")
+os.makedirs(OUT, exist_ok=True)
 
 VARIANTS = {
     "default": dict(),
-    # r5 noise-floor control (VERDICT r4 #1a): full-rate fast GI with the GI
+    # noise-floor control: full-rate fast GI with the GI
     # dither schedule offset by one frame — scored against "default" via
     # --ref-variant it measures the SSIM cost of pure noise DEcorrelation
     # between two otherwise-identical steady-state renders
@@ -43,8 +47,8 @@ VARIANTS = {
                        gi_trace_depth_div=2),
     "trace16_d2_t1": dict(gi_fast_screen_mode="trace", gi_trace_depth_div=2,
                           gi_trace_solid_taps=1),
-    # round-4 trace diet candidates (PERF_NOTES r4): the full-res f32 depth
-    # table is the trace's dominant cost (ab_time r4: depth_div=2 553->399 ms)
+    # trace diet candidates: the full-res f32 depth table is the trace's
+    # main memory traffic
     "d2": dict(gi_trace_depth_div=2),
     "d2min": dict(gi_trace_depth_div=2, gi_trace_depth_mode="min"),
     "d4": dict(gi_trace_depth_div=4),
@@ -95,7 +99,7 @@ VARIANTS = {
     "probes3": dict(gi_fast_probe_points=3, gi_fast_edge_fallback=False,
                     gi_fast_skip_steps=3, gi_fast_hit_steps=8,
                     gi_fast_hit_step_scale=1.0, gi_fast_jitter_scale=1.0),
-    # r5 REFERENCE_PRODUCT candidates (VERDICT r4 #5): the parity march with
+    # REFERENCE_PRODUCT candidates: the parity march with
     # the fast-path levers; scored vs the exact reference (default --ref)
     "ref_exact": dict(gi_mode="reference"),
     "ref_il2": dict(gi_mode="reference", gi_temporal_reference=True,
@@ -117,7 +121,7 @@ def main():
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--diff", action="store_true")
     # total settle+measure scans per point (frames per scan = --frames):
-    # 6 x 8 = 48 in-device frames (VERDICT r4 #1b: at taa_blend 0.05 the old
+    # 6 x 8 = 48 in-device frames (at taa_blend 0.05 the old
     # 16-frame settle left 0.95^16 = 44% of the TAA transient in BOTH images,
     # amplifying exactly the noise-correlation artifact under test)
     ap.add_argument("--scans", type=int, default=6)
@@ -131,12 +135,12 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from vulkan_pbr_renderer_tpu.app.renderer import (
+    from vulkan_pbr_renderer.app.renderer import (
         CameraState, Renderer, init_frame_state, make_camera, render_frame,
     )
-    from vulkan_pbr_renderer_tpu.assets import build_scene, suntemple
-    from vulkan_pbr_renderer_tpu.config import RenderConfig
-    from vulkan_pbr_renderer_tpu.utils import image
+    from vulkan_pbr_renderer.assets import build_scene, suntemple
+    from vulkan_pbr_renderer.config import RenderConfig
+    from vulkan_pbr_renderer.utils import image
 
     frames = args.frames
     cfg0 = RenderConfig(width=args.width, height=args.height // 32 * 32)
@@ -171,7 +175,7 @@ def main():
 
     def settled(cfg, rend, fn, t):
         # args.scans scan calls of `frames` frames each; every call gets a
-        # byte-distinct (anti-memoization) camera nudge ~1e-6 of the path
+        # distinct camera nudge ~1e-6 of the path
         # apart — visually identical, and every variant sees the SAME nudge
         # sequence so the final frames are matched.  Only the last scan is
         # timed (steady state).
@@ -188,7 +192,7 @@ def main():
     # reference frames cached on disk (the parity march costs ~1 s/frame x 32
     # settle frames x 2 points + a minutes-long compile per eval process);
     # keyed by the config/scene knobs that affect the reference image.
-    # Delete /tmp/ev_ref_cache_* after changing the reference GI path.
+    # Delete chiprun_out/ev_ref_cache_* after changing the reference GI path.
     if args.ref_variant is not None:
         rcfg = cfg0.replace(**VARIANTS[args.ref_variant])
         refname = f"v-{args.ref_variant}"
@@ -202,7 +206,7 @@ def main():
            if os.environ.get("EV_REF_CACHE", "1") == "1" else None)
     todo = [t for t in points
             if key is None
-            or not os.path.exists(f"/tmp/ev_ref_cache_{key}_t{t}.npy")]
+            or not os.path.exists(f"{OUT}/ev_ref_cache_{key}_t{t}.npy")]
     if todo:
         rr = Renderer(rcfg, scene, raster_backend="pallas")
         render_ref = make_render_n(rcfg)
@@ -211,10 +215,10 @@ def main():
             print(f"# {refname} t={t} done ({ref_ms:.0f} ms/frame)",
                   file=sys.stderr)
             if key is not None:
-                np.save(f"/tmp/ev_ref_cache_{key}_t{t}.npy", refs[t])
+                np.save(f"{OUT}/ev_ref_cache_{key}_t{t}.npy", refs[t])
     for t in points:
         if t not in refs:
-            refs[t] = np.load(f"/tmp/ev_ref_cache_{key}_t{t}.npy")
+            refs[t] = np.load(f"{OUT}/ev_ref_cache_{key}_t{t}.npy")
             print(f"# {refname} t={t} loaded from cache", file=sys.stderr)
 
     def timed(cfg, rend):
@@ -246,10 +250,10 @@ def main():
             if args.diff:
                 d = np.abs(img - refs[t]).mean(-1)
                 d = np.clip(d / max(d.max(), 1e-6), 0, 1)
-                image.write_png(f"/tmp/ev_diff_{name}_t{t}.png",
+                image.write_png(f"{OUT}/ev_diff_{name}_t{t}.png",
                                 np.stack([d] * 3, -1))
-                image.write_png(f"/tmp/ev_img_{name}_t{t}.png", img)
-                image.write_png(f"/tmp/ev_ref_t{t}.png", refs[t])
+                image.write_png(f"{OUT}/ev_img_{name}_t{t}.png", img)
+                image.write_png(f"{OUT}/ev_ref_t{t}.png", refs[t])
         line = (f"{name:16s} ssim={['%.4f' % s for s in ssims]} "
                 f"mean={np.mean(ssims):.4f}")
         if args.time:

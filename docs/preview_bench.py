@@ -1,11 +1,11 @@
-"""End-to-end latency of the interactive preview loop (VERDICT r4 #8).
+"""End-to-end latency of the interactive preview loop.
 
 The preview client (app/preview.py) is the parity feature for the
 reference's live window (main.cpp:58-101): tick = input poll -> camera ->
 render -> PNG encode -> HTTP.  This harness drives PreviewSession.tick()
-exactly as the serve loop does — real TPU render step, real PNG encode, a
-small mouse-look event stream each tick (so the camera moves and no tunnel
-memoization can fake the timing) — and reports the per-stage split.
+exactly as the serve loop does — real device render step, real frame
+encode, a small mouse-look event stream each tick (so the camera moves
+every tick) — and reports the per-stage split.
 
 Usage: python docs/preview_bench.py [--width 960 --height 544 --ticks 12]
 """
@@ -30,12 +30,12 @@ def main():
 
     import numpy as np
 
-    from vulkan_pbr_renderer_tpu.app.headless import build_scene_by_name
-    from vulkan_pbr_renderer_tpu.app.preview import PreviewSession
-    from vulkan_pbr_renderer_tpu.app.renderer import Renderer
-    from vulkan_pbr_renderer_tpu.config import RenderConfig
-    from vulkan_pbr_renderer_tpu.gpu import device
-    from vulkan_pbr_renderer_tpu.utils import image as imglib
+    from vulkan_pbr_renderer.app.headless import build_scene_by_name
+    from vulkan_pbr_renderer.app.preview import PreviewSession
+    from vulkan_pbr_renderer.app.renderer import Renderer
+    from vulkan_pbr_renderer.config import RenderConfig
+    from vulkan_pbr_renderer.gpu import device
+    from vulkan_pbr_renderer.utils import image as imglib
 
     device.init_devices()
     cfg = RenderConfig(width=args.width, height=args.height)
@@ -64,8 +64,7 @@ def main():
     encode_ms = []
     for k in range(args.ticks):
         # a small right-drag look each tick: the camera matrix changes, so
-        # every render call is byte-distinct (tunnel memoization defeated)
-        # and the event path (push_events -> InputFrame -> camera_controls)
+        # every render call is distinct, and the event path (push_events -> InputFrame -> camera_controls)
         # is exercised like a real browser client
         session.push_events([["press", "MouseRight"], ["mouse", 3, 1],
                              ["release", "MouseRight"]])
@@ -73,8 +72,7 @@ def main():
         session.tick()
         tick_ms.append((time.perf_counter() - t0) * 1000.0)
         # re-measure the transport encode alone on a noise frame (a real
-        # frame's entropy, unlike the old blank-frame estimate that read
-        # ~11 ms where the in-tick PNG cost ~240)
+        # frame's entropy; a blank frame underestimates it)
         noise = np.random.default_rng(k).random(
             (cfg.height, cfg.width, 3), np.float32)
         te = time.perf_counter()
@@ -88,7 +86,7 @@ def main():
     print(f"# {args.width}x{args.height}, {scene.num_tris} tris, "
           f"backend={r.raster_backend}")
     print(f"tick end-to-end: {stats(tick_ms)}")
-    print(f"  render (jit call + device + tunnel fetch): {stats(render_ms)}")
+    print(f"  render (jit call + device + host fetch):   {stats(render_ms)}")
     print(f"  transport encode (noise-frame estimate):   {stats(encode_ms)}")
 
 

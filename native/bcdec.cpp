@@ -1,8 +1,8 @@
 // Native BC1/BC3/BC5 block decompression.
 //
 // The reference keeps DDS data GPU-compressed and lets the texture units
-// decode (asset_import.cpp:42-53 + ddspp); TPU has no texture hardware, so
-// decode happens at asset load.  assets/dds.py holds the numpy reference
+// decode (asset_import.cpp:42-53 + ddspp); a JAX program reaches no texture
+// units, so decode happens at asset load.  assets/dds.py holds the numpy reference
 // implementation; this C++ module is the fast path for the ~180-texture
 // SunTemple-class loads (ctypes binding in assets/native_bcdec.py).
 //

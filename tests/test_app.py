@@ -4,9 +4,9 @@ import time
 import jax.numpy as jnp
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.app.camera import FpsCamera
-from vulkan_pbr_renderer_tpu.app.hotreload import ShaderWatcher
-from vulkan_pbr_renderer_tpu.config import RenderConfig
+from vulkan_pbr_renderer.app.camera import FpsCamera
+from vulkan_pbr_renderer.app.hotreload import ShaderWatcher
+from vulkan_pbr_renderer.config import RenderConfig
 
 
 def test_fps_camera_default_faces_plus_y():
@@ -75,7 +75,7 @@ def test_init_devices_retries(monkeypatch):
     """SURVEY §5 failure plan: transient backend-init failures retry."""
     import jax
 
-    from vulkan_pbr_renderer_tpu.gpu import device
+    from vulkan_pbr_renderer.gpu import device
 
     calls = {"n": 0}
 

@@ -4,7 +4,7 @@ import struct
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.assets import dds, fbx, gltf, hdr, native_bcdec, suntemple, tga
+from vulkan_pbr_renderer.assets import dds, fbx, gltf, hdr, native_bcdec, suntemple, tga
 
 RES = "/root/reference/resources"
 
@@ -141,10 +141,10 @@ def test_suntemple_watertight_walls():
     """All 6 hall boundary planes must be front-facing from inside."""
     import jax.numpy as jnp
 
-    from vulkan_pbr_renderer_tpu.raster import setup as rs, xla_raster as rr
-    from vulkan_pbr_renderer_tpu.assets import build_scene
-    from vulkan_pbr_renderer_tpu.app.renderer import make_camera
-    from vulkan_pbr_renderer_tpu.config import RenderConfig
+    from vulkan_pbr_renderer.raster import setup as rs, xla_raster as rr
+    from vulkan_pbr_renderer.assets import build_scene
+    from vulkan_pbr_renderer.app.renderer import make_camera
+    from vulkan_pbr_renderer.config import RenderConfig
 
     cfg = RenderConfig(width=96, height=64)
     scene = build_scene(suntemple.build_parts(0.2), suntemple.materials(), texture_size=16)
@@ -159,7 +159,7 @@ def test_suntemple_watertight_walls():
 
 def test_bc3_color_block_always_four_color():
     # BC3 spec: the color block ignores the c0<=c1 comparison and always
-    # decodes in 4-color mode (ADVICE.md r1).  Build a BC3 block whose color
+    # decodes in 4-color mode.  Build a BC3 block whose color
     # part has c0 < c1 and all selectors = 3: must be (c0+2*c1)/3, not black.
     alpha = bytes([255, 255] + [0] * 6)                  # constant alpha
     color = struct.pack("<HH", 0x001F, 0xF800) + bytes([0xFF] * 4)  # sel=3

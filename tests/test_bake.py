@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.assets import procedural
-from vulkan_pbr_renderer_tpu.bake import cache, ibl
-from vulkan_pbr_renderer_tpu.gpu import sampling
+from vulkan_pbr_renderer.assets import procedural
+from vulkan_pbr_renderer.bake import cache, ibl
+from vulkan_pbr_renderer.gpu import sampling
 
 
 @pytest.fixture(scope="module")

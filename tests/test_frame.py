@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.assets import MaterialDesc, build_scene, procedural
-from vulkan_pbr_renderer_tpu.app import Renderer, make_camera
-from vulkan_pbr_renderer_tpu.config import RenderConfig
+from vulkan_pbr_renderer.assets import MaterialDesc, build_scene, procedural
+from vulkan_pbr_renderer.app import Renderer, make_camera
+from vulkan_pbr_renderer.config import RenderConfig
 
 
 SMALL = RenderConfig(
@@ -112,7 +112,7 @@ def test_gi_temporal_interleave_converges_to_full(pattern):
     def settled(div, frames=8):
         # bloom + shafts are independent of the GI cache under test; off,
         # the two full-frame compiles (div 1 + div 2) drop substantially
-        # (this test was 130 s of the fast tier — VERDICT r4 #7).  TAA
+        # (this test dominated the fast tier with them on).  TAA
         # stays ON: the interleave's staleness is TAA-integrated by design
         # and the convergence bound is calibrated to the settled frame.
         # pattern is meaningless at div=1 — pin it so the div=1 graph is

@@ -2,11 +2,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.assets import MaterialDesc, build_scene, procedural
-from vulkan_pbr_renderer_tpu.raster import setup as rs
-from vulkan_pbr_renderer_tpu.raster import xla_raster as rr
-from vulkan_pbr_renderer_tpu.shade import gbuffer as gb
-from vulkan_pbr_renderer_tpu.utils import math3d as m3
+from vulkan_pbr_renderer.assets import MaterialDesc, build_scene, procedural
+from vulkan_pbr_renderer.raster import setup as rs
+from vulkan_pbr_renderer.raster import xla_raster as rr
+from vulkan_pbr_renderer.shade import gbuffer as gb
+from vulkan_pbr_renderer.utils import math3d as m3
 
 
 def _camera_looking_plus_y(pos=(0, -4, 0), fov=60.0, aspect=1.0):

@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.shade import gi
-from vulkan_pbr_renderer_tpu.utils import math3d as m3
+from vulkan_pbr_renderer.shade import gi
+from vulkan_pbr_renderer.utils import math3d as m3
 
 
 def _inputs(seed=0, h=24, w=32):

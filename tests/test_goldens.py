@@ -11,10 +11,10 @@ import jax
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.app import Renderer, make_camera
-from vulkan_pbr_renderer_tpu.assets import MaterialDesc, build_scene, procedural, suntemple
-from vulkan_pbr_renderer_tpu.config import RenderConfig
-from vulkan_pbr_renderer_tpu.utils import image
+from vulkan_pbr_renderer.app import Renderer, make_camera
+from vulkan_pbr_renderer.assets import MaterialDesc, build_scene, procedural, suntemple
+from vulkan_pbr_renderer.config import RenderConfig
+from vulkan_pbr_renderer.utils import image
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 UPDATE = os.environ.get("UPDATE_GOLDENS") == "1"

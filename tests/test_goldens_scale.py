@@ -1,4 +1,4 @@
-"""Large-scale + per-pass-toggle golden images (VERDICT r1 #8, r2 weak #5).
+"""Large-scale + per-pass-toggle golden images.
 
 Round 2's optimizations trade precision for speed (uint8 materials, f16
 window packs, nearest-mip sampling); these goldens are the safety net the
@@ -23,10 +23,10 @@ import pytest
 
 FULL_TIER = os.environ.get("RUN_SCALE_GOLDENS") == "1"
 
-from vulkan_pbr_renderer_tpu.app import Renderer, make_camera
-from vulkan_pbr_renderer_tpu.assets import build_scene, suntemple
-from vulkan_pbr_renderer_tpu.config import RenderConfig
-from vulkan_pbr_renderer_tpu.utils import image
+from vulkan_pbr_renderer.app import Renderer, make_camera
+from vulkan_pbr_renderer.assets import build_scene, suntemple
+from vulkan_pbr_renderer.config import RenderConfig
+from vulkan_pbr_renderer.utils import image
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 UPDATE = os.environ.get("UPDATE_GOLDENS") == "1"
@@ -61,8 +61,8 @@ SCALE = RenderConfig(
 )
 
 MID = SCALE.replace(width=480, height=272, shadow_map_size=256)
-# fast-tier golden size (VERDICT r4 #7: the 480x272 fast golden was 147 s of
-# the tier; the 320x192 class keeps the same full-pipeline precision net at
+# fast-tier golden size (the 480x272 fast golden dominated the tier's time;
+# the 320x192 class keeps the same full-pipeline precision net at
 # ~40% of the pixels).  The reference-parity golden keeps MID: it is the
 # parity yardstick and lives in the slow tier anyway.
 MID_FAST = MID.replace(width=320, height=192)
@@ -71,7 +71,7 @@ MID_FAST = MID.replace(width=320, height=192)
 @pytest.mark.parametrize("mode", [
     "fast",
     # the reference-parity march golden is multi-minute on CPU — slow tier
-    # (VERDICT r3 #8); the fast golden stays default-on as the precision net
+    # the fast golden stays default-on as the precision net
     pytest.param("reference", marks=pytest.mark.slow),
 ])
 def test_golden_suntemple_480(mode):

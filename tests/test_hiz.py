@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.shade import gi
+from vulkan_pbr_renderer.shade import gi
 
 
 def _trace(depth, p0, p1, **kw):

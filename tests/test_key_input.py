@@ -2,7 +2,7 @@
 edge-triggered queries, modifier aliasing) and the main-loop control
 translation (camera.h:39-92, main.cpp:72-79)."""
 
-from vulkan_pbr_renderer_tpu.app.key_input import (
+from vulkan_pbr_renderer.app.key_input import (
     InputFrame, Key, camera_controls, debug_controls,
 )
 

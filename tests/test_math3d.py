@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.utils import math3d as m3
+from vulkan_pbr_renderer.utils import math3d as m3
 
 
 def test_perspective_lh_zo_depth_range():

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.utils import color, image, noise
+from vulkan_pbr_renderer.utils import color, image, noise
 
 
 def test_ign_range_and_determinism():

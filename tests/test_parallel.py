@@ -1,6 +1,6 @@
-"""Multi-chip sharded frame on the 8-device virtual CPU mesh.
+"""Multi-device sharded frame on the 8-device virtual CPU mesh.
 
-The contract (VERDICT r1 #3): sharding must be invisible — the sharded step
+The contract: sharding must be invisible — the sharded step
 produces the SAME image and temporal state as the single-chip `render_frame`
 under matching config (the sharded path forces gi/shaft res divisors to 1),
 and a multi-frame loop carries state exactly like the single-chip loop.
@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.app.renderer import (
+from vulkan_pbr_renderer.app.renderer import (
     init_frame_state, make_camera, render_frame,
 )
-from vulkan_pbr_renderer_tpu.assets import build_scene, suntemple, procedural
-from vulkan_pbr_renderer_tpu.bake import ibl
-from vulkan_pbr_renderer_tpu.config import RenderConfig
-from vulkan_pbr_renderer_tpu.gpu import sampling
-from vulkan_pbr_renderer_tpu.parallel import sharding
+from vulkan_pbr_renderer.assets import build_scene, suntemple, procedural
+from vulkan_pbr_renderer.bake import ibl
+from vulkan_pbr_renderer.config import RenderConfig
+from vulkan_pbr_renderer.gpu import sampling
+from vulkan_pbr_renderer.parallel import sharding
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 
@@ -63,7 +63,7 @@ def test_sharded_frame_matches_single_chip_exactly():
     # reference: single-chip render_frame with the SAME divisor-1 config the
     # sharded path uses (it forces full-res GI/shafts — see sharding.py)
     ref_cfg = cfg.replace(gi_res_divisor=1, shaft_res_divisor=1,
-                          gi_temporal_div=1)
+                          sky_res_divisor=1, gi_temporal_div=1)
     ref_states, ref_imgs = [], []
     for cam in cams:
         st, img = render_frame(scene, init_frame_state(ref_cfg), cam, sun,
@@ -102,7 +102,7 @@ def test_sharded_frame_loop_matches_single_chip():
     cached sun depth, bloom pyramid) matches the single-chip loop."""
     cfg = _small_cfg()
     ref_cfg = cfg.replace(gi_res_divisor=1, shaft_res_divisor=1,
-                          gi_temporal_div=1)
+                          sky_res_divisor=1, gi_temporal_div=1)
     mesh = sharding.make_mesh(8, dp=1)
     scene, pre, lut = _resources(cfg)
     sun = jnp.asarray([35.0, 80.0], jnp.float32)
@@ -128,10 +128,9 @@ def test_sharded_frame_loop_matches_single_chip():
 
 
 def test_sharded_pallas_matches_single_chip_pallas():
-    """The PRODUCTION multi-chip config: the folded Pallas kernel through
-    shard_map (exercising the scalar-prefetch y_origin slicing, ADVICE r2 /
-    VERDICT r2 weak #3), interpret mode on the CPU mesh, vs the single-chip
-    pallas renderer."""
+    """The PRODUCTION multi-card config: the tile kernel through shard_map
+    (exercising the traced y_origin band), interpret mode on the CPU mesh,
+    vs the single-card pallas renderer."""
     cfg = _small_cfg()
     mesh = sharding.make_mesh(8, dp=2)   # sp=4: height 256 = 4 * 2 tiles
     scene, pre, lut = _resources(cfg)
@@ -140,7 +139,7 @@ def test_sharded_pallas_matches_single_chip_pallas():
             for i in range(2)]
 
     ref_cfg = cfg.replace(gi_res_divisor=1, shaft_res_divisor=1,
-                          gi_temporal_div=1)
+                          sky_res_divisor=1, gi_temporal_div=1)
     ref_imgs = []
     for cam in cams:
         _, img = render_frame(scene, init_frame_state(ref_cfg), cam, sun,
@@ -154,9 +153,9 @@ def test_sharded_pallas_matches_single_chip_pallas():
         np.testing.assert_allclose(np.asarray(out[i]), ref_imgs[i],
                                    rtol=2e-4, atol=2e-4)
     # the sharded raster found real work and flagged no overflow
-    ovf = np.asarray(new_states.raster_overflow)
-    assert (ovf[:, 1] > 0).all()
-    assert (ovf[:, 1] <= cfg.pair_capacity_factor * scene.num_tris).all()
+    pairs = np.asarray(new_states.raster_pairs)
+    assert (pairs > 0).all()
+    assert (pairs <= cfg.pair_capacity_factor * scene.num_tris).all()
 
 
 def test_sharded_dp_slices_are_independent():

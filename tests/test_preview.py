@@ -6,8 +6,8 @@ import urllib.request
 
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.app import preview
-from vulkan_pbr_renderer_tpu.config import RenderConfig
+from vulkan_pbr_renderer.app import preview
+from vulkan_pbr_renderer.config import RenderConfig
 
 CFG = RenderConfig(width=32, height=16)
 
@@ -67,8 +67,8 @@ def test_session_with_real_renderer():
     render path, and frames encode."""
     import jax.numpy as jnp
 
-    from vulkan_pbr_renderer_tpu.app.renderer import Renderer, render_frame
-    from vulkan_pbr_renderer_tpu.assets import MaterialDesc, build_scene, procedural
+    from vulkan_pbr_renderer.app.renderer import Renderer, render_frame
+    from vulkan_pbr_renderer.assets import MaterialDesc, build_scene, procedural
 
     cfg = RenderConfig(
         width=64, height=32, shadow_map_size=32, lightgrid_size=8,

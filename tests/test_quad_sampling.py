@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.gpu import sampling as S
-from vulkan_pbr_renderer_tpu.shade.shadow import PCF_OFFSETS
+from vulkan_pbr_renderer.gpu import sampling as S
+from vulkan_pbr_renderer.shade.shadow import PCF_OFFSETS
 
 
 def test_quad_pack_layout():
@@ -131,7 +131,7 @@ def test_depth_compare_window_matches():
 
 
 def test_depth_compare_window2_u16_matches():
-    """The 2x2 u16 pack (round-2 VMEM-sized shadow table) must match the
+    """The 2x2 u16 pack (the 33 MB shadow table) must match the
     scalar-gather compare exactly when depths are u16-representable."""
     rng = np.random.default_rng(10)
     depth = jnp.asarray(
@@ -205,7 +205,7 @@ def test_catmull5_window_close_to_full_catmull():
 
 
 def test_grid_u8_pack_roundtrip():
-    from vulkan_pbr_renderer_tpu.shade import gi
+    from vulkan_pbr_renderer.shade import gi
 
     rng = np.random.default_rng(13)
     grid = np.zeros((8, 8, 8, 4), np.float32)

@@ -1,13 +1,16 @@
-"""The Pallas tile rasterizer must match the XLA reference exactly."""
+"""The tile raster kernel (raster/tiled.py, Pallas on the Triton route) must
+match the XLA reference rasterizer exactly.  On the CPU the kernel runs in the
+Pallas interpreter; the `gpu`-marked test compiles it for the card."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.assets import MaterialDesc, build_scene, procedural
-from vulkan_pbr_renderer_tpu.raster import binning, setup as rs, visibility, xla_raster as rr
-from vulkan_pbr_renderer_tpu.utils import math3d as m3
+from vulkan_pbr_renderer.assets import MaterialDesc, build_scene, procedural
+from vulkan_pbr_renderer.gpu import device
+from vulkan_pbr_renderer.raster import binning, setup as rs, tiled, xla_raster as rr
+from vulkan_pbr_renderer.utils import math3d as m3
 
 
 def _random_tris(n, seed=0, depth_range=(0.1, 0.9)):
@@ -19,39 +22,18 @@ def _random_tris(n, seed=0, depth_range=(0.1, 0.9)):
     return jnp.asarray(np.concatenate([verts, z, w], -1).astype(np.float32))
 
 
-def _compare(clip, W, H, **kw):
-    s = rs.setup_triangles(clip, W, H, cull="none")
-    d_ref, t_ref = rr.rasterize_vis(s, W, H)
-    d_got, t_got = visibility.rasterize_vis_tiled(s, W, H, **kw)
-    np.testing.assert_array_equal(np.asarray(t_ref), np.asarray(t_got))
-    dr = np.asarray(d_ref)
-    dg = np.asarray(d_got)
-    np.testing.assert_allclose(
-        np.where(np.isinf(dr), -1, dr), np.where(np.isinf(dg), -1, dg), atol=1e-6
-    )
+def _single():
+    return jnp.asarray(np.array(
+        [[[-0.5, -0.5, 0.5, 1.0], [0.5, -0.5, 0.5, 1.0], [0.0, 0.5, 0.5, 1.0]]],
+        np.float32))
 
 
-def test_single_triangle_matches():
-    clip = jnp.asarray(
-        np.array([[[-0.5, -0.5, 0.5, 1.0], [0.5, -0.5, 0.5, 1.0], [0.0, 0.5, 0.5, 1.0]]],
-                 np.float32)
-    )
-    _compare(clip, 256, 128, tile_capacity=256)
-
-
-def test_many_random_triangles_match():
-    clip = _random_tris(300, seed=1)
-    _compare(clip, 256, 160, tile_capacity=512)
-
-
-def test_multi_tile_spanning_triangles():
+def _multi_tile():
     # few huge triangles spanning many tiles
-    clip = _random_tris(8, seed=2)
-    clip = clip.at[:, :, :2].multiply(3.0)
-    _compare(clip, 384, 160, tile_capacity=256)
+    return _random_tris(8, seed=2).at[:, :, :2].multiply(3.0)
 
 
-def test_depth_ordering_matches():
+def _depth_order():
     # heavy overlap: many tris at the same place, distinct depths
     rng = np.random.default_rng(3)
     n = 64
@@ -59,11 +41,10 @@ def test_depth_ordering_matches():
     verts = base + rng.uniform(-0.05, 0.05, (n, 3, 2)).astype(np.float32)
     z = np.linspace(0.2, 0.8, n, dtype=np.float32)[:, None, None].repeat(3, 1)
     w = np.ones((n, 3, 1), np.float32)
-    clip = jnp.asarray(np.concatenate([verts, z, w], -1))
-    _compare(clip, 128, 128, tile_capacity=256)
+    return jnp.asarray(np.concatenate([verts, z, w], -1))
 
 
-def test_scene_raster_through_pipeline():
+def _scene_tris():
     mats = [MaterialDesc()]
     parts = [procedural.make_plane((0, 0, 0), (10, 10), 2, 0),
              procedural.make_cube((0, 0, 1), (1.5, 1.5, 1.5), 0),
@@ -73,100 +54,121 @@ def test_scene_raster_through_pipeline():
         jnp.array([4.0, -5.0, 3.0]), jnp.array([0.0, 0.0, 0.5])
     )
     clip = rs.transform_to_clip(scene.positions, cam)
-    s = rs.setup_triangles(clip[scene.indices], 192, 128, cull="back")
-    d_ref, t_ref = rr.rasterize_vis(s, 192, 128)
-    d_got, t_got = visibility.rasterize_vis_tiled(s, 192, 128, tile_capacity=512)
-    np.testing.assert_array_equal(np.asarray(t_ref), np.asarray(t_got))
+    return clip[scene.indices]
 
 
-def test_folded_hiz_matches_xla_exactly():
-    """hiz (front-to-back + early-exit) must be EXACT: the skip test uses a
-    conservative lower bound, so skipped triangles are strictly occluded."""
-    from vulkan_pbr_renderer_tpu.raster import visibility_v2
-
-    # heavy overdraw: many stacked triangles in the same region
-    clip = _random_tris(600, seed=11)
-    s = rs.setup_triangles(clip, 128, 96, cull="none")
-    d_ref, t_ref = rr.rasterize_vis(s, 128, 96)
-    d_on, t_on = visibility_v2.rasterize_vis_folded(s, 128, 96, hiz=True)
-    d_off, t_off = visibility_v2.rasterize_vis_folded(s, 128, 96, hiz=False)
-    np.testing.assert_array_equal(np.asarray(t_ref), np.asarray(t_on))
-    np.testing.assert_array_equal(np.asarray(t_off), np.asarray(t_on))
-    dr = np.where(np.isinf(np.asarray(d_ref)), -1, np.asarray(d_ref))
-    dn = np.where(np.isinf(np.asarray(d_on)), -1, np.asarray(d_on))
-    np.testing.assert_allclose(dr, dn, atol=1e-6)
-
-
-def test_near_plane_crossing_bbox_conservative():
-    """Triangles crossing w=0 get a directional-extension bbox (setup.py
-    round 3) instead of full screen; the tiled kernels must still cover every
-    pixel the XLA baseline covers."""
-    from vulkan_pbr_renderer_tpu.raster import visibility_v2
-
+def _near_plane():
+    # w spans negative..positive so many triangles cross the camera plane:
+    # the directional-extension bbox (setup.py) must still cover every pixel
+    # the XLA baseline covers
     rng = np.random.default_rng(21)
     n = 40
     verts = rng.uniform(-2, 2, (n, 3, 2)).astype(np.float32)
     z = rng.uniform(0.1, 0.9, (n, 1, 1)).astype(np.float32).repeat(3, 1)
-    # w spans negative..positive so many triangles cross the camera plane
     w = rng.uniform(-0.5, 1.5, (n, 3, 1)).astype(np.float32)
-    clip = jnp.asarray(np.concatenate([verts * np.abs(w), z * np.abs(w), w], -1))
-    s = rs.setup_triangles(clip, 160, 96, cull="none")
-    d_ref, t_ref = rr.rasterize_vis(s, 160, 96)
-    d_v2, t_v2 = visibility_v2.rasterize_vis_folded(s, 160, 96)
-    np.testing.assert_array_equal(np.asarray(t_ref), np.asarray(t_v2))
-    d_v1, t_v1 = visibility.rasterize_vis_tiled(s, 160, 96, tile_capacity=256)
-    np.testing.assert_array_equal(np.asarray(t_ref), np.asarray(t_v1))
+    return jnp.asarray(np.concatenate([verts * np.abs(w), z * np.abs(w), w], -1))
+
+
+# name: (clip tris, width, height, cull, kernel kwargs, y_origin, setup height)
+_CASES = {
+    "single": (_single, 256, 128, "none", {}, 0, None),
+    "random": (lambda: _random_tris(300, seed=1), 256, 160, "none",
+               dict(chunk=2), 0, None),
+    "multi_tile": (_multi_tile, 384, 160, "none", dict(tile=16), 0, None),
+    "depth_order": (_depth_order, 128, 128, "none", {}, 0, None),
+    "scene": (_scene_tris, 192, 128, "back", {}, 0, None),
+    "near_plane": (_near_plane, 160, 96, "none", {}, 0, None),
+    # heavy overdraw: 600 stacked triangles, deep per-tile segments
+    "overdraw": (lambda: _random_tris(600, seed=11), 128, 96, "none",
+                 dict(chunk=8), 0, None),
+    # partial edge tiles on both axes: masked stores
+    "partial_edge_tile": (lambda: _random_tris(200, seed=5), 200, 135, "none",
+                          dict(chunk=1, tile=16), 0, None),
+    # a band [50, 90) of a 200-row viewport: traced y_origin, partial tile
+    "y_origin_band": (lambda: _random_tris(300, seed=6), 200, 40, "none", {},
+                      50, 200),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_kernel_matches_xla(case):
+    make, w, h, cull, kw, y0, setup_h = _CASES[case]
+    clip = make()
+    s = rs.setup_triangles(clip, w, setup_h or h, cull=cull)
+    d_ref, t_ref = rr.rasterize_vis(s, w, h, y_origin=y0)
+    d_got, t_got, pairs = jax.jit(
+        lambda s, y0: tiled.rasterize_tiled(
+            s, w, h, pair_capacity=16 * clip.shape[0], y_origin=y0, **kw)
+    )(s, y0)
+    assert 0 < int(pairs) <= 16 * clip.shape[0]
+    t_ref = np.asarray(t_ref)
+    assert (t_ref >= 0).any()
+    np.testing.assert_array_equal(t_ref, np.asarray(t_got))
+    dr = np.asarray(d_ref)
+    dg = np.asarray(d_got)
+    np.testing.assert_array_equal(np.isinf(dr), np.isinf(dg))
+    np.testing.assert_allclose(
+        np.where(np.isinf(dr), -1, dr), np.where(np.isinf(dg), -1, dg), atol=1e-6
+    )
 
 
 def test_binning_segments_consistent():
     clip = _random_tris(100, seed=4)
     s = rs.setup_triangles(clip, 256, 128, cull="none")
-    bins = binning.bin_triangles(s, 256, 128, tile_capacity=256)
-    assert bins.tiles_x == 2 and bins.tiles_y == 4
+    bins = binning.bin_triangles(s, 256, 128, tile=64, pair_capacity=1024)
+    assert bins.tiles_x == 4 and bins.tiles_y == 2
+    assert bins.pair_data.shape == (13, 1024)
     starts = np.asarray(bins.starts)
-    ids = np.asarray(bins.pair_data[..., 12]).reshape(-1).astype(np.int64)
+    total = int(bins.total_pairs)
+    assert starts[0] == 0 and starts[-1] == total
+    enc = np.asarray(bins.pair_data[12])[:total]
+    ids = (np.abs(enc) - 1).astype(np.int64)
     assert (np.diff(starts) >= 0).all()
-    total = starts[-1]
-    assert (ids[:total] >= 0).all()
-    assert (ids[total:] == -1).all()
-    # per-tile segments hold sorted tri ids (stability)
+    assert (ids >= 0).all()
+    # the sign of the id code carries the depth mode
+    np.testing.assert_array_equal(enc > 0, np.asarray(s.z_mode)[ids])
+    # per-tile segments hold ascending tri ids (the kernel's tie-break rule)
     for t in range(starts.shape[0] - 1):
         seg = ids[starts[t] : starts[t + 1]]
         assert (np.diff(seg) > 0).all()  # each tri at most once per tile
     # every valid triangle appears in at least one tile
     valid_ids = set(np.nonzero(np.asarray(s.valid))[0].tolist())
-    binned = set(ids[:total].tolist())
-    assert valid_ids == binned
+    assert valid_ids == set(ids.tolist())
 
 
-def test_overflow_counters_surface_dropped_triangles():
-    # ADVICE.md r1 (high): capacity overflow must be detectable.  5 tris in
-    # one tile with tile_capacity=4 (chunk must divide capacity; use chunk=4):
-    # max_segment reports 5 > 4.
-    clip = _random_tris(5, seed=7)
-    clip = clip.at[:, :, :2].multiply(0.1)  # all in one tile
-    s = rs.setup_triangles(clip, 128, 32, cull="none")
-    d, t, ovf = visibility.rasterize_vis_tiled(
-        s, 128, 32, tile_capacity=4, chunk=4, return_overflow=True
-    )
-    max_seg, total = (int(x) for x in np.asarray(ovf))
-    assert max_seg == 5 and max_seg > 4
-    # with ample capacity the same scene reports no overflow
-    _, _, ovf2 = visibility.rasterize_vis_tiled(
-        s, 128, 32, tile_capacity=256, return_overflow=True
-    )
-    assert int(np.asarray(ovf2)[0]) == 5 and int(np.asarray(ovf2)[0]) <= 256
+def test_pair_capacity_overrun_is_counted():
+    # 40 big triangles each spanning several 32px tiles: the true pair count
+    # exceeds a pair_capacity of one pair per triangle, binning drops pairs,
+    # and total_pairs reports the true count so the host can tell
+    clip = _random_tris(40, seed=7).at[:, :, :2].multiply(2.0)
+    s = rs.setup_triangles(clip, 128, 96, cull="none")
+    _, t_small, pairs = tiled.rasterize_tiled(s, 128, 96, pair_capacity=40)
+    assert int(pairs) > 40
+    d_ref, t_ref = rr.rasterize_vis(s, 128, 96)
+    assert (np.asarray(t_small) != np.asarray(t_ref)).any()  # pairs dropped
+    # with ample capacity the same scene is exact and reports the same count
+    _, t_big, pairs2 = tiled.rasterize_tiled(s, 128, 96, pair_capacity=4096)
+    assert int(pairs2) == int(pairs) <= 4096
+    np.testing.assert_array_equal(np.asarray(t_big), np.asarray(t_ref))
+
+
+def test_interpret_policy(monkeypatch):
+    # the CPU suite interprets, the GPU compiles; any other backend is an
+    # error, never a silent fall back to the interpreter
+    assert device.pallas_interpret() is True
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert device.pallas_interpret() is False
+    monkeypatch.setattr(jax, "default_backend", lambda: "other")
+    with pytest.raises(RuntimeError):
+        device.pallas_interpret()
 
 
 def test_renderer_check_overflow(tmp_path):
-    # end-to-end: render a frame through the pallas backend with tiny
-    # capacities and confirm the host-side check flags the drop.  Only the v1
-    # rowblock kernel has a per-tile capacity (the sun raster packs all ~576
-    # sphere tris into one 32px tile > tile_capacity=128); the folded (v2)
-    # kernel walks arbitrarily deep segments, so the same scene must report
-    # clean there.
-    from vulkan_pbr_renderer_tpu.app.renderer import Renderer, make_camera
-    from vulkan_pbr_renderer_tpu.config import RenderConfig
+    # end-to-end: render a frame through the pallas backend with a pair
+    # budget too small for the scene and confirm the host-side check flags
+    # the drop; the default budget renders clean
+    from vulkan_pbr_renderer.app.renderer import Renderer, make_camera
+    from vulkan_pbr_renderer.config import RenderConfig
 
     mats = [MaterialDesc()]
     parts = [procedural.make_uv_sphere((0, 0, 1), 1.0, 12, 24, 0)]
@@ -176,26 +178,39 @@ def test_renderer_check_overflow(tmp_path):
         prefiltered_env_size=16, prefiltered_env_min_size=8,
         prefilter_samples=16, brdf_lut_size=16, brdf_lut_samples=16,
         bloom_pass_count=2, gi_screen_trace_steps=2, gi_diffuse_steps=2,
-        gi_specular_steps=2, light_shaft_steps=2,
-        tile_capacity=128, tri_chunk=128, raster_kernel="rowblock",
-        tile_h=32, tile_w=128,
-        # the subject is the overflow COUNTERS (main + sun raster); the
-        # shading stack behind them is irrelevant, and with it off the two
-        # Renderer compiles drop ~5x (this test was the fast tier's single
-        # slowest at 149 s — VERDICT r4 #7)
+        gi_specular_steps=2, light_shaft_steps=2, raster_tile=16,
+        # the subject is the overflow counter (main + sun raster); the
+        # shading stack behind it is irrelevant, and with it off the two
+        # Renderer compiles are ~5x cheaper
         enable_gi=False, enable_taa=False, enable_bloom=False,
         enable_light_shafts=False, enable_ibl=False,
     )
-    r = Renderer(cfg, scene, use_cache=False, raster_backend="pallas")
     cam = make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), cfg)
+    r = Renderer(cfg.replace(pair_capacity_factor=1), scene, use_cache=False,
+                 raster_backend="pallas")
     r.render(cam)
     ok, msg = r.check_overflow()
     assert not ok and "overflow" in msg
     with pytest.raises(RuntimeError):
         r.check_overflow(strict=True)
 
-    r2 = Renderer(cfg.replace(raster_kernel="folded"), scene, use_cache=False,
-                  raster_backend="pallas")
+    r2 = Renderer(cfg, scene, use_cache=False, raster_backend="pallas")
     r2.render(cam)
-    ok2, _ = r2.check_overflow()
-    assert ok2  # no tile capacity to overflow; pair budget is ample
+    ok2, msg2 = r2.check_overflow()
+    assert ok2, msg2  # the default pair budget is ample
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_on_gpu_matches_xla(gpu):
+    """The compiled Triton kernel (no interpreter) vs the XLA reference, at
+    the tolerance chip_smoke.py states: Triton and XLA may contract the edge
+    FMAs differently, so a pixel centre on a shared edge can flip."""
+    clip = _random_tris(2000, seed=9)
+    s = rs.setup_triangles(clip, 1000, 540, cull="none")
+    d_ref, t_ref = rr.rasterize_vis(s, 1000, 540)
+    d_got, t_got, _ = jax.jit(lambda s: tiled.rasterize_tiled(
+        s, 1000, 540, pair_capacity=40000, interpret=False))(s)
+    agree = np.asarray(t_got) == np.asarray(t_ref)
+    assert agree.mean() >= 0.9999
+    fin = lambda d: np.where(np.isinf(d), -1.0, np.asarray(d))
+    assert np.abs(fin(d_got) - fin(d_ref))[agree].max() <= 1e-6

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vulkan_pbr_renderer_tpu.raster import setup as rs
-from vulkan_pbr_renderer_tpu.raster import xla_raster as rr
+from vulkan_pbr_renderer.raster import setup as rs
+from vulkan_pbr_renderer.raster import xla_raster as rr
 
 
 def _clip_from_ndc2d(verts2d, z=0.5):

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.gpu import sampling as S
+from vulkan_pbr_renderer.gpu import sampling as S
 
 
 def _ramp_tex(h, w, c=3):

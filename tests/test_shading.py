@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_pbr_renderer_tpu.shade import bloom as bloom_mod
-from vulkan_pbr_renderer_tpu.shade import brdf, gi, shadow, taa
-from vulkan_pbr_renderer_tpu.utils import math3d as m3
+from vulkan_pbr_renderer.shade import bloom as bloom_mod
+from vulkan_pbr_renderer.shade import brdf, gi, shadow, taa
+from vulkan_pbr_renderer.utils import math3d as m3
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +196,7 @@ def test_light_shafts_polar_matches_march():
 def test_taa_ycocg_history_close_to_rgb_catmull():
     """The YCoCg split history (Catmull luma + bilinear chroma) must track
     the reference's full RGB Catmull resample."""
-    from vulkan_pbr_renderer_tpu.gpu import sampling as S
+    from vulkan_pbr_renderer.gpu import sampling as S
 
     rng = np.random.default_rng(4)
     h, w = 48, 64
@@ -279,8 +279,8 @@ def test_screen_probe_hit_semantics():
     """The fast-GI screen probe reports a hit only when the projected open
     point lands on-screen BEHIND visible geometry, and returns the prev-frame
     color there (lighting_pass.glsl:371-384 resolve analog)."""
-    from vulkan_pbr_renderer_tpu.gpu import sampling as S
-    from vulkan_pbr_renderer_tpu.utils import math3d as m3
+    from vulkan_pbr_renderer.gpu import sampling as S
+    from vulkan_pbr_renderer.utils import math3d as m3
 
     h, w = 32, 32
     clip_from_world = m3.perspective_lh_zo(1.0, 1.0, 0.1, 100.0)  # cam at 0, +z fwd...
@@ -378,7 +378,7 @@ def test_bloom_constant_image_adds_strength_fraction():
 def test_grid_u16_bitcast_sampling_bit_identical():
     # the u16-bitcast gather view of pack_grid_u8 must reproduce the u8
     # decode path exactly (gi._gs_uvw rationale)
-    from vulkan_pbr_renderer_tpu.gpu import sampling as S
+    from vulkan_pbr_renderer.gpu import sampling as S
 
     rng = np.random.RandomState(3)
     grid = jnp.asarray(rng.rand(8, 8, 8, 4).astype(np.float32) * 4.0)
@@ -421,7 +421,7 @@ def test_taa_full_rgb_catmull_matches_dense_reference():
     """full_rgb_catmull resamples history with the exact 16-tap RGB
     Catmull-Rom (taa_resolve.glsl:125-174) — verify the window-pack path
     against the dense sampler on the same reprojected uv."""
-    from vulkan_pbr_renderer_tpu.gpu import sampling as S
+    from vulkan_pbr_renderer.gpu import sampling as S
 
     rng = np.random.default_rng(9)
     h, w = 48, 64
